@@ -1,11 +1,13 @@
 #!/usr/bin/env python
 """Render every demo scene to out/*.png (headless).
 
+    python demo.py [--out DIR] [--scale S] [--cpu]
+
 Configs mirror BASELINE.json:
 1. rotating cube, 512x512
-2. glTF Duck, textured, 1080p (480x270 on CPU)
+2+4. a glTF scene through FrameDriver with the full shadow stack, 1080p
+   (scaled by --scale); the in-repo multi-mesh GLB
 3. multi-mesh PBR scene (synthetic GLB from the test builder)
-4. two-pass shadow mapping (the Duck frame includes the full shadow stack)
 5. raymarched SDF scene + debug-UI overlay composite
 """
 
@@ -33,8 +35,18 @@ def main():
 
     import jax
 
-    if args.cpu or jax.default_backend() == "cpu":
+    if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+
+    import tempfile
+
+    from funky_tpu.models.sample_scenes import build_multimesh_glb
+    from funky_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+    scene_dir = tempfile.TemporaryDirectory()
+    glb_path = build_multimesh_glb(
+        pathlib.Path(scene_dir.name) / "multi.glb", two_textures=True)
 
     if args.interactive:
         from funky_tpu.app.driver import FrameDriver
@@ -48,8 +60,7 @@ def main():
         tile = RasterConfig(tile_h=16, tile_w=128, capacity=4480)
         cfg = GltfConfig(width=w, height=h, shadow_map_size=512,
                          raster=tile, shadow_raster=tile)
-        drv = FrameDriver(cfg,
-                          scene_path="/root/reference/models/scene.gltf",
+        drv = FrameDriver(cfg, scene_path=glb_path, gltf_scale=1.0,
                           autotune=True)
         print("\x1b[2J", end="")
         TerminalViewer(drv, cols=100).run()
@@ -78,36 +89,30 @@ def main():
                                    default_cube_params(rotation=0.6))
     save("cube.png", img)
 
-    # 2+4. Duck with full shadow stack (+ UI overlay = config 5a)
+    # 2+4. glTF scene with the full shadow stack (+ UI overlay = 5a)
     w, h = int(1920 * s) // 128 * 128 or 256, int(1088 * s) // 64 * 64 or 128
     cap = 4480
     tile = RasterConfig(tile_h=16, tile_w=128, capacity=cap)
     gcfg = GltfConfig(width=w, height=h, shadow_map_size=2048 if s >= 1
                       else 512, raster=tile, shadow_raster=tile)
-    drv = FrameDriver(gcfg, scene_path="/root/reference/models/scene.gltf",
+    drv = FrameDriver(gcfg, scene_path=glb_path, gltf_scale=1.0,
                       autotune=True)
     for _ in range(3):
         drv.step()
-    write_png(out / "duck_shadows_ui.png", drv.readback())
-    print("wrote", out / "duck_shadows_ui.png")
+    write_png(out / "gltf_shadows_ui.png", drv.readback())
+    print("wrote", out / "gltf_shadows_ui.png")
     drv.toggle_ui()
-    write_png(out / "duck_shadows.png", drv.readback())
-    print("wrote", out / "duck_shadows.png")
+    write_png(out / "gltf_shadows.png", drv.readback())
+    print("wrote", out / "gltf_shadows.png")
 
     # 3. multi-mesh PBR scene (two PBR cubes + textured ground quad,
     # per-mesh textures — BASELINE config 3)
-    import tempfile
-
     from funky_tpu.frame import (compiled_gltf_frame, default_gltf_params,
                                  init_frame_state)
     from funky_tpu.models.gltf import GltfScene
-    from funky_tpu.models.sample_scenes import build_multimesh_glb
     from funky_tpu.models.scene import build_device_scene
 
-    with tempfile.TemporaryDirectory() as td:
-        glb = build_multimesh_glb(pathlib.Path(td) / "multi.glb",
-                                  two_textures=True)
-        mscene = GltfScene.load(glb)
+    mscene = GltfScene.load(glb_path)
     ds = build_device_scene(mscene)
     mw = int(1280 * s) // 128 * 128 or 256
     mh = int(768 * s) // 64 * 64 or 128

@@ -1,9 +1,13 @@
 #!/usr/bin/env python
-"""Multi-chip row sharding at REAL scale on the 8-device CPU mesh:
-bit-exact parity vs the single-device frame at 1920x1080 / 4x2048^2
-cascades, plus per-frame collective traffic accounting from the compiled
-HLO (VERDICT round-1 item 5 — prove the communication model before
-hardware exists).
+"""Multi-device row sharding at real scale on the 8-device CPU mesh:
+parity vs the single-device frame at 1920x1088 / 4x2048^2 cascades, plus
+per-frame collective traffic counted from the compiled HLO (the
+communication model, checked without cards).
+
+    python experiments/multichip_scale.py          # SCALE=full|mid|small
+
+The scene is the in-repo multi-mesh GLB (models/sample_scenes.py). On
+cards, `python chip_smoke.py --four-cards` runs the sharded frame.
 """
 
 import os
@@ -56,9 +60,12 @@ def collective_bytes(hlo: str):
 
 
 def main():
+    import tempfile
+
     from funky_tpu.frame import (GltfConfig, compiled_gltf_frame,
                                  default_gltf_params, init_frame_state)
     from funky_tpu.models.gltf import GltfScene
+    from funky_tpu.models.sample_scenes import build_multimesh_glb
     from funky_tpu.models.scene import build_device_scene
     from funky_tpu.ops.raster import RasterConfig
     from funky_tpu.parallel.mesh import make_mesh
@@ -90,9 +97,12 @@ def main():
     cfg = GltfConfig(width=w, height=h, shadow_map_size=sm,
                      raster=tile, shadow_raster=stile)
 
-    duck = GltfScene.load("/root/reference/models/scene.gltf")
-    scene = build_device_scene(duck)
-    params = default_gltf_params(gltf_min_y=float(duck.bounds_min[1]))
+    with tempfile.TemporaryDirectory() as td:
+        gltf = GltfScene.load(build_multimesh_glb(Path(td) / "multi.glb",
+                                                  two_textures=True))
+    scene = build_device_scene(gltf)
+    params = default_gltf_params(gltf_min_y=float(gltf.bounds_min[1]),
+                                 gltf_scale=1.0)
 
     mesh = make_mesh(8)
     sharded = sharded_gltf_frame(mesh, cfg)
@@ -107,8 +117,7 @@ def main():
     for kind, (count, nbytes) in sorted(stats.items()):
         print(f"#   {kind:20s} x{count:3d}  {nbytes / 1e6:9.2f} MB")
         total += nbytes
-    print(f"#   TOTAL {total / 1e6:.2f} MB/frame "
-          f"(v5e ICI ~45 GB/s/link -> ~{total / 45e9 * 1e3:.2f} ms)")
+    print(f"#   TOTAL {total / 1e6:.2f} MB/frame")
 
     # --- bit-exact parity vs single-device ---
     single = compiled_gltf_frame(cfg)

@@ -1,7 +1,7 @@
-"""funky_tpu — a TPU-native software rendering framework.
+"""funky_tpu — a JAX software rendering framework.
 
-A brand-new re-design of the capabilities of funky-renderer (a Rust/Vulkan
-forward renderer, see /root/reference) as a pure-JAX, TPU-first engine:
+A re-design of the capabilities of funky-renderer (a Rust/Vulkan forward
+renderer) as a pure-JAX engine, run on an NVIDIA GPU (CPU for tests):
 
 - Scene buffers (vertices, indices, textures, shadow maps) are HBM-resident
   jnp arrays (struct-of-arrays), not Vulkan buffer objects.
@@ -10,8 +10,8 @@ forward renderer, see /root/reference) as a pure-JAX, TPU-first engine:
   UI overlay composite — is ONE jit-compiled pure function
   ``state, image = render_frame(scene, params, state)``.
 - Rasterization is tile-binned: triangle setup and binning are vectorized
-  XLA ops; the per-tile depth-tested raster loop is a Pallas TPU kernel
-  (with a pure-jnp reference implementation used for CPU testing).
+  XLA ops; the per-tile depth-tested raster loop is a Pallas GPU kernel
+  through Triton (with a pure-jnp reference implementation, the CPU path).
 - Temporal state (shadow TAA history, previous depth buffer for contact
   shadows, previous view-proj) is an explicit carried pytree, not mutable
   GPU images.
@@ -38,9 +38,9 @@ __version__ = "0.1.0"
 
 import jax as _jax
 
-# TPU matmuls default to bf16 operand precision; a renderer cannot afford
-# that (e.g. inverse-projected far-plane frustum corners cancel 10 - 9.99
-# to exactly 0 in bf16 => NaN cascades; vertex positions jitter by whole
-# units). Geometry math is tiny next to the gather-bound passes, so force
-# full f32 everywhere.
+# Full f32 matmuls everywhere: on the GPU the default precision lets XLA
+# run f32 matmuls in TF32 (~3 decimal digits), which a renderer cannot
+# afford (inverse-projected far-plane frustum corners cancel 10 - 9.99 to
+# 0 => NaN cascades; vertex positions jitter by whole units). "highest"
+# rules TF32 out. Geometry math is tiny next to the per-pixel passes.
 _jax.config.update("jax_default_matmul_precision", "highest")

@@ -48,7 +48,8 @@ class FrameDriver:
                  sanitize: bool = False,
                  autotune: bool = True,
                  retune_check_every: int = 240,
-                 retune_after: int = 2) -> None:
+                 retune_after: int = 2,
+                 gltf_scale: Optional[float] = None) -> None:
         # sanitize: per-frame NaN/Inf guard over outputs (utils/sanitize;
         # the validation-layer analogue — costs a host sync, debug only)
         # autotune: measure this scene's occupancy at startup and tighten
@@ -59,7 +60,9 @@ class FrameDriver:
         # overflows a capacity pins every frame to the exact-but-dense
         # fallback, so after `retune_after` consecutive overflowing checks
         # it re-derives the config (cached re-jit) instead of staying slow
-        # until restart.
+        # until restart. gltf_scale: the model's world scale (default:
+        # the reference's duck scale, SceneObjects.gltf_scale); set it
+        # here for other scenes so autotune measures the real view.
         self.cfg = cfg
         self.sanitize = sanitize
         self.autotune = autotune
@@ -77,6 +80,8 @@ class FrameDriver:
         self.camera = CameraController()
         self.schedule = ecs.Schedule([ecs.rotation_system])
         ecs.setup_scene(self.world)
+        if gltf_scale is not None:
+            self.world.resource(ecs.SceneObjects).gltf_scale = gltf_scale
 
         if device_scene is not None:
             self.device_scene = device_scene
@@ -345,7 +350,7 @@ class FrameDriver:
         """Window-title string (main.rs:351-360)."""
         return (f"Funky Renderer | FPS: {self.fps.fps:.1f} | "
                 f"Frame: {self.fps.frame_time_ms:.2f}ms | "
-                f"ECS + JAX/TPU")
+                f"ECS + JAX")
 
     def run(self, n_frames: int, keys: Iterable[Keys] = ()) -> float:
         """Headless loop; returns steady-state FPS (dispatch-async, one

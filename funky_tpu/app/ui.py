@@ -5,9 +5,9 @@ the same debug window — FPS/frame time, duck-scale log slider, shadow
 toggles (debug cascades / PCSS / shadow TAA), softness slider, ECS counts,
 device info (egui_integration.rs:97-211) — built from scratch:
 
-- a font atlas rasterized once from PIL's built-in bitmap font (the
-  analogue of egui's init-time font atlas upload, egui_vulkan.rs:204-218;
-  like the reference, the atlas is the only texture the backend supports).
+- a font atlas committed as font_atlas.png (the analogue of egui's
+  init-time font atlas upload, egui_vulkan.rs:204-218; like the
+  reference, the atlas is the only texture the backend supports).
 - widgets tessellate into (pos, uv, premultiplied-RGBA) triangles, rendered
   by passes/overlay.py into a fixed panel rect, composited with
   ONE/ONE_MINUS_SRC_ALPHA.
@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from pathlib import Path
 from typing import List, Optional, Tuple
 
 import jax.numpy as jnp
@@ -61,40 +62,34 @@ class UiChanges:
     use_shadow_taa: Optional[bool] = None
 
 
+FONT_ATLAS = Path(__file__).with_name("font_atlas.png")
+
+
 @functools.lru_cache(maxsize=1)
 def build_font_atlas() -> Tuple[np.ndarray, dict, int, int]:
-    """Rasterize ASCII 32..126 into a coverage atlas.
+    """The ASCII 32..126 coverage atlas, read from the committed
+    font_atlas.png (8x13 glyph cells, rendered once from a bitmap font).
 
     Returns (atlas (Ah, Aw, 4) f32 with rgb=1 a=coverage, glyph uv map
     {char: (u0, v0, u1, v1)}, glyph_w, glyph_h). Texel (0, 0) region is
     solid white (the egui white-texel convention for untextured shapes).
     """
-    from PIL import Image, ImageDraw, ImageFont
+    from ..models.png_io import _decode_png_pure
 
-    font = ImageFont.load_default()
-    gw, gh = 8, 13   # PIL default bitmap font cell
+    gw, gh = 8, 13   # glyph cell
     pad = 2          # inter-cell padding: stops bilinear bleed
     cw, chh = gw + pad, gh + pad
     cols = 16
-    rows = -(-len(_GLYPHS) // cols)
-    pad_top = 2  # row 0..1 reserved: white texels
-    aw, ah = cols * cw, rows * chh + pad_top
-
-    img = Image.new("L", (aw, ah), 0)
-    draw = ImageDraw.Draw(img)
+    pad_top = 2      # row 0..1 reserved: white texels
+    cov = _decode_png_pure(FONT_ATLAS.read_bytes())[..., 0]
+    ah, aw = cov.shape
     uvmap = {}
     for i, ch in enumerate(_GLYPHS):
         cx = (i % cols) * cw
         cy = (i // cols) * chh + pad_top
-        draw.text((cx, cy), ch, fill=255, font=font)
         uvmap[ch] = (cx / aw, cy / ah, (cx + gw) / aw, (cy + gh) / ah)
-
-    cov = np.asarray(img, np.float32) / 255.0
-    cov[0:pad_top, :] = 0.0
-    cov[0, 0:2] = 1.0
-    cov[1, 0:2] = 1.0
     atlas = np.ones((ah, aw, 4), np.float32)
-    atlas[..., 3] = cov
+    atlas[..., 3] = cov.astype(np.float32) / 255.0
     return atlas, uvmap, gw, gh
 
 WHITE_UV = None  # computed lazily from atlas shape

@@ -2,7 +2,7 @@
 
 Each frame is ONE pure jit-compiled function: scene arrays + per-frame
 parameters (+ carried temporal state for the glTF path) in, linear RGBA
-framebuffer (+ new state) out. This is the TPU-native replacement for the
+framebuffer (+ new state) out. This is the array-program replacement for the
 reference's command-buffer recording + render passes + queue submit
 (main.rs:575-913): pass ordering becomes ordinary data dependencies, and
 XLA overlaps/fuses everything it can.
@@ -155,7 +155,7 @@ class GltfFrameFlags:
     debug_cascades: bool = False
     enable_shadows: bool = True
     enable_contact_shadows: bool = True
-    # Sparse-exact shadow filtering (the TPU analogue of the reference's
+    # Sparse-exact shadow filtering (the array-program analogue of the reference's
     # fragment-shader early-outs, gltf.frag:402-423): conservative
     # LIT/UMBRA classification retires most pixels with zero taps; only
     # penumbra pixels run the exact 16+16-tap evaluation, compacted.
@@ -166,8 +166,8 @@ class GltfFrameFlags:
     sparse_contact: bool = True
     # Performance mode (not in the reference): evaluate the shadow filter
     # + contact march on a 1/scale-resolution grid and bilinearly upsample
-    # (scale in {1, 2, 4}). TPU shadow cost is gather-row-bound, so cost
-    # drops ~scale^2; edges soften accordingly. half_res_shadows is kept
+    # (scale in {1, 2, 4}). Designed for a gather-row-bound shadow cost,
+    # which drops ~scale^2; edges soften accordingly. half_res_shadows is kept
     # as a bool alias for scale=2. Default = exact reference rates.
     half_res_shadows: bool = False
     shadow_eval_scale: int = 1
@@ -191,7 +191,7 @@ class GltfFrameFlags:
     # Synthesized cascade maps (passes/shadow.synthesize_shadow_maps):
     # analytic ground plane over the full map + a rasterized occluder
     # footprint window — replaces ~12 ms of 4x2048^2 depth raster with
-    # dense VPU math + a tiny window raster. ~1-ulp-class deviation
+    # dense elementwise math + a tiny window raster. ~1-ulp-class deviation
     # (plane-fit rounding, quad-rim texel rule); an occluder outgrowing
     # its window lax.cond-falls back to the full raster. Perf mode,
     # default off; requires sparse_shadows (shares the footprint
@@ -240,12 +240,12 @@ class GltfConfig:
     # capacity=None (auto: full triangle count) is the SAFE default —
     # an undersized bin silently drops triangles from that tile (e.g. the
     # whole model vanishing from a shadow cascade). Tighten per scene for
-    # DMA savings only with verified headroom.
+    # scan savings only with verified headroom.
     raster: RasterConfig = dataclasses.field(
         default_factory=lambda: RasterConfig(tile_h=32, tile_w=128))
-    # 128x256 shadow tiles measured fastest on v5e (experiments/
-    # bench_shadow_tiles.py: 11.4 ms vs 13.6 at 128x128, 36 at 32x128 —
-    # per-grid-step overhead dominates, smaller tiles lose).
+    # Shadow tiles: 128x256 bins (the GPU kernel splits each into
+    # register-sized blocks, ops/raster_pallas.py). Not yet tuned on the
+    # H100.
     shadow_raster: RasterConfig = dataclasses.field(
         default_factory=lambda: RasterConfig(tile_h=128, tile_w=256))
     flags: GltfFrameFlags = dataclasses.field(default_factory=GltfFrameFlags)
@@ -306,8 +306,9 @@ class GltfConfig:
     # to exact taps everywhere (correct, slower). Class-map coarseness in
     # fine texels per cell.
     max_softness: float = 4.0
-    # coarse=16 keeps the 2048^2x4 cell table at ~2 MB — under the TPU
-    # gather cliff (PERF.md: tables <= ~2.5 MB gather 3x faster).
+    # coarse=16 keeps the 2048^2x4 cell table at ~2 MB (sized for a
+    # gather that ran faster on small tables; not yet measured on the
+    # H100).
     class_coarse: int = 16
     # sparse contact shadows (flags.sparse_contact): stage-2 refine set
     # capacity (None = slab_pixels // 4) and exact-march set capacity
@@ -703,7 +704,7 @@ def _shade_slab_blocked(scene: DeviceScene, uni, state: FrameState,
                         shadow_maps, tri_id, depth, setup_data, blocks,
                         cfg: GltfConfig, y0, class_maps, tri_flags,
                         bcap: int, light_maps=None, tap_routes=None):
-    """The unified valid-block back half (the TPU answer to the GPU only
+    """The unified valid-block back half (the array-program answer to the GPU only
     launching fragments where the raster emitted them, gltf.frag:1-656
     running once per COVERED pixel): compact 8x8 blocks with any coverage,
     run the whole back half on flat (bcap*64,) block-major arrays (every

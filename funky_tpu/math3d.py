@@ -254,8 +254,8 @@ def perspective_inverse(proj):
     Inverting the *composite* view-proj numerically (as the reference does,
     gltf_renderer.rs:1842) catastrophically cancels the far-plane corners'
     w to exactly 0 in f32. Even the per-entry form w' = z/d + c/d cancels
-    on TPU (its reciprocal-based division rounds 1/d and c/d so the far
-    plane's 1/d + c/d hits exactly 0). Recovering near/far and writing the
+    where division is computed through a reciprocal (1/d and c/d round so
+    the far plane's 1/d + c/d hits exactly 0). Recovering near/far and writing the
     w row as w'(z) = 1/near + z*(1/far - 1/near) is cancellation-free:
     w'(1) = 1/far exactly.
     """

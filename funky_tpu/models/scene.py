@@ -8,7 +8,7 @@ Per-object model matrices and flags (useTexture) are small (O, ...) arrays
 computed per frame, so "one draw call per mesh with push constants" becomes
 "one fully vectorized vertex/raster pass over everything".
 
-Arrays are padded to multiples of 128 (TPU lane width); padded triangles are
+Arrays are padded to multiples of ROW_QUANTUM rows; padded triangles are
 degenerate (all indices 0 via a zero-area guard in the rasterizer).
 
 Material base colors are baked into vertex colors exactly like the reference
@@ -29,10 +29,13 @@ from .gltf import GltfScene
 from .png_io import srgb_to_linear
 from .primitives import ground_plane_geometry
 
-LANE = 128
+# Row padding: scenes whose sizes round to the same multiple share one
+# compiled frame, and every row count stays a multiple of a GPU warp (32)
+# and of the 128-entry bin-capacity quantum (utils/autotune).
+ROW_QUANTUM = 128
 
 
-def _pad_rows(arr: np.ndarray, multiple: int = LANE) -> np.ndarray:
+def _pad_rows(arr: np.ndarray, multiple: int = ROW_QUANTUM) -> np.ndarray:
     n = arr.shape[0]
     pad = (-n) % multiple
     if pad == 0:
@@ -145,7 +148,7 @@ def build_device_scene(scene: Optional[GltfScene],
 
     if texture is None:
         # 1x1 white fallback (create_fallback_texture,
-        # gltf_renderer.rs:1577-1586) padded to a TPU-friendly shape.
+        # gltf_renderer.rs:1577-1586), padded to an 8x128 layer.
         texture = np.ones((1, 8, 128, 4), np.float32)
         texture_sizes = np.asarray([[8.0, 128.0]], np.float32)
 

@@ -7,7 +7,7 @@ linear march + bisection refinement against an analytic SDF instead of a
 depth buffer, plus SDF soft shadows (cone-aperture trick) and the same
 Blinn-Phong + fill-light shading family as cube.frag.
 
-This path is the TPU's best case: every pixel runs identical dense
+This path is the array program's best case: every pixel runs identical dense
 arithmetic (no gathers, no rasterization irregularity) — it demonstrates
 the framework's per-pixel compute ceiling.
 

@@ -223,15 +223,9 @@ def bin_stats(clip: jnp.ndarray, tri_indices: jnp.ndarray, width: int,
 
 
 def gather_bin_data(setup: TriangleSetup, bins: jnp.ndarray) -> jnp.ndarray:
-    """Pre-gather raster data per bin entry: (n_tiles, C, 16).
-
-    Columns 0..11 = bary planes + z plane; column 12 = the triangle id
-    bitcast to f32 (TPU Mosaic only supports dynamic indexing on the
-    sublane dim, so the id rides inside the row instead of a separate
-    lane-indexed array); 13..15 pad. One dense XLA gather outside the
-    raster kernel, so the kernel streams its block sequentially from HBM.
+    """Pre-gather each bin entry's setup row: (n_tiles, C, 16), one dense
+    XLA gather feeding the jnp raster's scan (columns as in the module
+    docstring; -1 padding entries read row 0 and are masked by their id).
+    The GPU kernel reads the setup table directly instead.
     """
-    safe = jnp.maximum(bins, 0)
-    rows = setup.data[safe]                              # (n_tiles, C, 16)
-    ids_f = jax.lax.bitcast_convert_type(bins, jnp.float32)
-    return rows.at[..., 12].set(ids_f)
+    return setup.data[jnp.maximum(bins, 0)]

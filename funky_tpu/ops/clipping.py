@@ -7,7 +7,7 @@ sub-triangles covering its in-front part. Round 1 culled such triangles
 whole (ops/binning.py w-cull) — fly the camera to the ground and geometry
 pops out of existence.
 
-TPU-native design: clipping must not change array shapes under jit, so we
+Array-program design: clipping must not change array shapes under jit, so we
 expand a STATIC number of extra triangle slots. Crossing triangles are
 rare (zero in the default views), so a small compacted capacity covers
 them; overflow degrades the excess to whole-triangle culls (round-1

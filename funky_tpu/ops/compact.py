@@ -1,13 +1,13 @@
 """Sparse compaction: evaluate an expensive per-element function on only
 the elements that need it.
 
-TPU rationale: every per-pixel data-dependent fetch costs a serial-loop
-gather row (~3-13 ns/row depending on table size — see PERF.md), so a pass
+Rationale: designed for a machine where every per-pixel data-dependent
+fetch costs a serial-loop gather row, so a pass
 that only a few % of pixels need (penumbra shadow taps, contact-shadow
 marches) should run on a compacted list of those pixels, not the full
 framebuffer. Masking alone saves nothing: gather cost is data-independent.
 
-This is the TPU-native stand-in for the GPU's divergence handling (early
+This is the array-program stand-in for the GPU's divergence handling (early
 `return`s in gltf.frag, e.g. the lit/out-of-bounds early-outs at
 gltf.frag:402-423) — a fragment shader retires cheap pixels for free; we
 compact instead.
@@ -123,7 +123,7 @@ def compact_indices_blocked(mask: jnp.ndarray, capacity: int,
                             ) -> BlockedCompacted:
     """Two-level compaction for spatially-clustered masks: argsort the
     (bh, bw)-block-any grid first (e.g. 65k keys instead of 4M — the
-    full-domain sort costs ~2 ns/key on TPU), then compact elements
+    full-domain sort is the expensive part), then compact elements
     within the candidate blocks only. Selects the SAME element set as
     compact_indices (order differs: block-major instead of raster — fine
     for independent-entry evaluation); `count` is still the true element

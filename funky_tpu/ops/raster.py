@@ -5,14 +5,14 @@ pipelines (gltf_renderer.rs:1324-1444 main, 1095-1230 shadow). Output is a
 *visibility buffer*: per pixel the winning triangle id and its NDC depth.
 All attribute interpolation and shading is deferred (passes/deferred.py),
 which keeps this inner loop tiny and makes shading a perfectly regular
-vectorized pass — the TPU-friendly split of the classic forward pipeline.
+vectorized pass.
 
-Two interchangeable implementations:
-- jnp: vmap-over-tiles + lax.scan over bin entries. Runs anywhere (CPU
-  tests); XLA vectorizes the (tile_h, tile_w) coverage math on the VPU.
-- pallas (ops/raster_pallas.py): same algorithm as a hand-tiled TPU kernel
-  with per-tile dynamic trip counts (scalar-prefetched bin counts), VMEM
-  z/id scratch, and no padded-capacity waste.
+Two interchangeable implementations (RasterConfig.backend):
+- "jnp": vmap-over-tiles + lax.scan over the full bin capacity. Runs
+  anywhere; the CPU default and the reference for the kernel.
+- "pallas_triton" (ops/raster_pallas.py): the same algorithm as a Pallas
+  kernel through Triton for the GPU, with per-tile trip counts over the
+  real bin entries and register-resident z/id. The GPU default.
 
 Depth semantics: compare LESS with clear depth 1.0 (main pass,
 gltf_renderer.rs:1411, 2252-2267); fragments outside z in [0, 1] are
@@ -42,7 +42,11 @@ class RasterConfig:
     # triangles (they vanish from that tile) — verify against
     # binning counts before tightening.
     capacity: int | None = None
-    backend: str = "auto"   # "jnp" | "pallas" | "auto" (pallas on TPU)
+    # "auto" (the GPU kernel on a GPU, jnp elsewhere) | "jnp" |
+    # "pallas_triton" (the GPU kernel; off the GPU only with interpret).
+    backend: str = "auto"
+    # Run the GPU kernel in the Pallas interpreter (CPU tests).
+    interpret: bool = False
 
     def tiles(self, width: int, height: int) -> Tuple[int, int]:
         return -(-height // self.tile_h), -(-width // self.tile_w)
@@ -53,17 +57,34 @@ class RasterConfig:
         return self.capacity
 
 
+BACKENDS = ("auto", "jnp", "pallas_triton")
+
+
 def _backend(cfg: RasterConfig) -> str:
-    if cfg.backend != "auto":
-        return cfg.backend
-    return "pallas" if jax.default_backend() == "tpu" else "jnp"
+    """The raster implementation cfg asks for on this platform. Never
+    falls back: an unknown name, or the GPU kernel off the GPU without
+    interpret mode, raises."""
+    if cfg.backend not in BACKENDS:
+        raise ValueError(f"unknown raster backend {cfg.backend!r}; "
+                         f"expected one of {BACKENDS}")
+    on_gpu = jax.default_backend() == "gpu"
+    if cfg.backend == "auto":
+        return "pallas_triton" if on_gpu else "jnp"
+    if cfg.backend == "pallas_triton" and not (on_gpu or cfg.interpret):
+        raise ValueError(
+            "raster backend 'pallas_triton' compiles for the GPU only; "
+            f"this platform is {jax.default_backend()!r} (set "
+            "RasterConfig.interpret=True to run it in the Pallas "
+            "interpreter)")
+    return cfg.backend
 
 
 def rasterize(bin_data: jnp.ndarray, bins: jnp.ndarray, counts: jnp.ndarray,
               width: int, height: int, cfg: RasterConfig,
               y_offset: jnp.ndarray | int = 0
               ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Rasterize binned triangles.
+    """Rasterize binned triangles with the jnp path (the GPU kernel reads
+    the setup table instead of pre-gathered rows; see raster_corners).
 
     Args:
       bin_data: (n_tiles, C, 12) per-entry raster rows (bary planes + z
@@ -79,11 +100,6 @@ def rasterize(bin_data: jnp.ndarray, bins: jnp.ndarray, counts: jnp.ndarray,
       depth:  (H, W) float32 NDC depth, 1.0 where empty.
     """
     y_offset = jnp.asarray(y_offset, jnp.int32)
-    if _backend(cfg) == "pallas":
-        from .raster_pallas import rasterize_pallas
-
-        return rasterize_pallas(bin_data, bins, counts, width, height, cfg,
-                                y_offset)
     return _rasterize_jnp(bin_data, bins, counts, y_offset, width, height,
                           cfg)
 
@@ -123,15 +139,12 @@ def raster_corners(tri_clip: jnp.ndarray, valid_mask: jnp.ndarray | None,
                                  cfg.tile_h, cfg.tile_w, capacity,
                                  y_offset)
 
-    if _backend(cfg) == "pallas":
-        from .raster_pallas import TABLE_VMEM_LIMIT, rasterize_pallas_table
+    if _backend(cfg) == "pallas_triton":
+        from .raster_pallas import rasterize_pallas
 
-        if setup.data.shape[0] * 64 <= TABLE_VMEM_LIMIT:
-            # table-resident kernel: per-tile DMA is just the id list
-            # (no capacity x 64B pre-gathered blocks)
-            tri_id, depth = rasterize_pallas_table(
-                setup.data, bins, counts, width, sh, cfg, y_offset)
-            return tri_id, depth, setup
+        tri_id, depth = rasterize_pallas(setup.data, bins, counts, width, sh,
+                                         cfg, y_offset)
+        return tri_id, depth, setup
 
     bin_data = gather_bin_data(setup, bins)
     tri_id, depth = rasterize(bin_data, bins, counts, width, sh, cfg,

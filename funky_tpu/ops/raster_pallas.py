@@ -1,20 +1,29 @@
-"""Pallas TPU kernel for the per-tile depth-tested raster loop.
+"""Pallas GPU kernel (Triton route) for the per-tile depth-tested raster.
 
-Same algorithm as ops/raster.py's jnp path, hand-tiled for the TPU:
+Same algorithm and outputs as ops/raster.py's jnp path. What the kernel
+does that XLA cannot express:
 
-- grid = one step per framebuffer tile; the tile's bin entries (triangle
-  ids + 12-float raster rows) stream HBM->VMEM via the BlockSpec pipeline
-  (double-buffered by Mosaic) while the previous tile rasters — the
-  software equivalent of the reference GPU's binned rasterizer front-end.
-- per-tile triangle *count* is scalar-prefetched into SMEM so the inner
-  fori_loop runs only over real entries, not padded capacity — the jnp
-  fallback must scan the full capacity, this kernel doesn't.
-- z/id live in the output VMEM blocks and update in place per triangle:
-  a serial per-tile loop needs no atomics for depth correctness (ties keep
-  the first-drawn triangle, matching compare-op LESS).
+- the loop over a tile's bin runs only over its REAL entries (a trip
+  count read from `counts` inside the kernel), where the jnp path scans
+  the full padded capacity in every tile;
+- z/id live in registers for the whole loop and are stored once, where
+  the jnp path carries them through a `lax.scan` that reads and writes
+  the frame's z/id buffers on every capacity slot.
 
-The coverage math per triangle is ~16 VPU ops on the (tile_h, tile_w)
-registers; bary planes come from VMEM with scalar extracts.
+Layout: one program per (tile, sub-block). A bin tile (e.g. 128x256 in
+the shadow pass) holds too many pixels for one block's registers, so the
+kernel block may be smaller than the tile; every sub-block of a tile
+walks the same bin list. Each program loads its count, its triangle ids
+and the 12 raster floats of each triangle itself, straight from the
+(T, 16) setup table in device memory (small, so it stays in L2). Ties
+keep the first-drawn triangle (compare-op LESS), as in the jnp path.
+
+Launch parameters come from sweeps on an H100 (PERF.md, Findings PR 1;
+experiments/raster_tune.py) over blocks of 1024-4096 pixels, 4 or 8
+warps, 1 or 2 pipeline stages and an unrolled triangle loop: no setting
+won everywhere, and the spread between two runs of one setting was as
+large as that between settings. 2048-pixel blocks, 4 warps, one stage
+and no unroll are the simplest of the best group.
 """
 
 from __future__ import annotations
@@ -25,246 +34,121 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
+
+# Kernel block = at most BLOCK_PIXELS pixels of one tile, BLOCK_W wide.
+BLOCK_PIXELS = 2048
+BLOCK_W = 128
+NUM_WARPS = 4
+NUM_STAGES = 1
 
 
-RASTER_UNROLL = 8  # triangles per fori_loop iteration: the serial loop's
-#                    per-iteration latency (~0.35 us: scalar row extracts +
-#                    loop overhead) rivals the VPU work per triangle, so
-#                    processing several independent rows per iteration
-#                    pipelines the scalar reads (4-cascade shadow raster at
-#                    128x256 tiles: 11.4 ms -> 9.7 at unroll 8; unroll 16
-#                    regresses to 13.9 — register spill).
+def _is_pow2(n: int) -> bool:
+    return n > 0 and n & (n - 1) == 0
 
 
-def _raster_kernel(offset_ref, counts_ref, data_ref, id_out, z_out,
-                   *, tile_h: int, tile_w: int, tiles_x: int,
-                   capacity: int):
+def block_shape(tile_h: int, tile_w: int,
+                block_pixels: int = BLOCK_PIXELS) -> Tuple[int, int]:
+    """Kernel block (sub_h, sub_w) for a (tile_h, tile_w) bin tile.
+
+    Triton blocks are powers of two, so the tile must be one too; the
+    block splits the tile into whole sub-blocks."""
+    if not (_is_pow2(tile_h) and _is_pow2(tile_w)):
+        raise ValueError(
+            f"the GPU raster kernel needs power-of-two tiles, got "
+            f"{tile_h}x{tile_w}")
+    sub_w = min(tile_w, BLOCK_W)
+    sub_h = max(1, min(tile_h, block_pixels // sub_w))
+    return sub_h, sub_w
+
+
+def _raster_kernel(off_ref, counts_ref, bins_ref, table_ref, id_out, z_out,
+                   *, tile_h: int, tile_w: int, sub_h: int, sub_w: int,
+                   tiles_x: int):
     t = pl.program_id(0)
+    s = pl.program_id(1)
+    n_sx = tile_w // sub_w
     count = counts_ref[t]
 
-    ty = t // tiles_x
-    tx = t % tiles_x
-    base_y = (ty * tile_h + offset_ref[0]).astype(jnp.float32)
-    base_x = (tx * tile_w).astype(jnp.float32)
+    base_y = (t // tiles_x) * tile_h + (s // n_sx) * sub_h + off_ref[0]
+    base_x = (t % tiles_x) * tile_w + (s % n_sx) * sub_w
+    py = (base_y.astype(jnp.float32) + 0.5 + jax.lax.broadcasted_iota(
+        jnp.int32, (sub_h, 1), 0).astype(jnp.float32))
+    px = (base_x.astype(jnp.float32) + 0.5 + jax.lax.broadcasted_iota(
+        jnp.int32, (1, sub_w), 1).astype(jnp.float32))
 
-    py = (base_y + 0.5 + jax.lax.broadcasted_iota(
-        jnp.int32, (tile_h, tile_w), 0).astype(jnp.float32))
-    px = (base_x + 0.5 + jax.lax.broadcasted_iota(
-        jnp.int32, (tile_h, tile_w), 1).astype(jnp.float32))
-
-    # z/id live in fori_loop carries (vector registers), NOT in the output
-    # refs: a ref round-trip per triangle serializes on VMEM latency and is
-    # ~5x slower end to end. The loop is unrolled RASTER_UNROLL-wide; the
-    # trailing group masks overrun entries with (i < count), so the padded
-    # bin rows (clamped reads) can never rasterize.
-    u = RASTER_UNROLL
-
-    def body(j, carry):
+    def body(i, carry):
         zbuf, idbuf = carry
-        for k in range(u):
-            i = j * u + k
-            iv = jnp.minimum(i, capacity - 1)
-            d = data_ref[0, iv]                 # (16,) raster row
-            # id rides in the row (scalar bitcast via 2D reshape; Mosaic
-            # has no 0/1-D bitcast)
-            tid = pltpu.bitcast(d[12].reshape(1, 1), jnp.int32)[0, 0]
-            b0 = d[0] * px + d[1] * py + d[2]
-            b1 = d[3] * px + d[4] * py + d[5]
-            b2 = d[6] * px + d[7] * py + d[8]
-            z = d[9] * px + d[10] * py + d[11]
-            cover = ((b0 >= 0.0) & (b1 >= 0.0) & (b2 >= 0.0)
-                     & (z >= 0.0) & (z < zbuf) & (i < count))
-            zbuf = jnp.where(cover, z, zbuf)
-            idbuf = jnp.where(cover, tid, idbuf)
-        return zbuf, idbuf
+        tid = bins_ref[t, i]                 # i < count: a real entry
+        d = [table_ref[tid, c] for c in range(12)]
+        b0 = d[0] * px + d[1] * py + d[2]
+        b1 = d[3] * px + d[4] * py + d[5]
+        b2 = d[6] * px + d[7] * py + d[8]
+        z = d[9] * px + d[10] * py + d[11]
+        cover = ((b0 >= 0.0) & (b1 >= 0.0) & (b2 >= 0.0)
+                 & (z >= 0.0) & (z < zbuf))
+        return jnp.where(cover, z, zbuf), jnp.where(cover, tid, idbuf)
 
-    z_init = jnp.ones((tile_h, tile_w), jnp.float32)
-    id_init = jnp.full((tile_h, tile_w), -1, jnp.int32)
-    z_final, id_final = jax.lax.fori_loop(0, (count + u - 1) // u, body,
-                                          (z_init, id_init))
-    id_out[0] = id_final
-    z_out[0] = z_final
+    z_init = jnp.full((sub_h, sub_w), 1.0, jnp.float32)
+    id_init = jnp.full((sub_h, sub_w), -1, jnp.int32)
+    zbuf, idbuf = jax.lax.fori_loop(0, count, body, (z_init, id_init))
+    id_out[...] = idbuf
+    z_out[...] = zbuf
 
 
-@functools.partial(jax.jit, static_argnums=(4, 5, 6, 7))
-def _rasterize_pallas_padded(bin_data, bins, counts, y_offset, tile_h,
-                             tile_w, tiles_y, tiles_x):
-    n_tiles, capacity, _ = bin_data.shape
+@functools.partial(jax.jit, static_argnames=(
+    "tile_h", "tile_w", "tiles_y", "tiles_x", "block_pixels", "num_warps",
+    "num_stages", "interpret"))
+def _rasterize_blocks(table, bins, counts, y_offset, *, tile_h, tile_w,
+                      tiles_y, tiles_x, block_pixels, num_warps, num_stages,
+                      interpret):
+    n_tiles = bins.shape[0]
+    sub_h, sub_w = block_shape(tile_h, tile_w, block_pixels)
+    n_sy, n_sx = tile_h // sub_h, tile_w // sub_w
+    kernel = functools.partial(
+        _raster_kernel, tile_h=tile_h, tile_w=tile_w, sub_h=sub_h,
+        sub_w=sub_w, tiles_x=tiles_x)
 
-    kernel = functools.partial(_raster_kernel, tile_h=tile_h, tile_w=tile_w,
-                               tiles_x=tiles_x, capacity=capacity)
+    def whole(shape):
+        return pl.BlockSpec(shape, lambda t, s: (0,) * len(shape))
 
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec((1, capacity, 16), lambda i, o, s: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, tile_h, tile_w), lambda i, o, s: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile_h, tile_w), lambda i, o, s: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-    )
+    def out_block(t, s):
+        return ((t // tiles_x) * n_sy + s // n_sx,
+                (t % tiles_x) * n_sx + s % n_sx)
 
-    id_tiles, z_tiles = pl.pallas_call(
+    frame = (tiles_y * tile_h, tiles_x * tile_w)
+    return pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((n_tiles, tile_h, tile_w), jnp.int32),
-            jax.ShapeDtypeStruct((n_tiles, tile_h, tile_w), jnp.float32),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=n_tiles * capacity * tile_h * tile_w * 16,
-            bytes_accessed=bin_data.size * 4
-            + 2 * n_tiles * tile_h * tile_w * 4,
-            transcendentals=0,
-        ),
-    )(y_offset.reshape(1), counts, bin_data)
-    return id_tiles, z_tiles
+        grid=(n_tiles, n_sy * n_sx),
+        in_specs=[whole((1,)), whole(counts.shape), whole(bins.shape),
+                  whole(table.shape)],
+        out_specs=[pl.BlockSpec((sub_h, sub_w), out_block),
+                   pl.BlockSpec((sub_h, sub_w), out_block)],
+        out_shape=[jax.ShapeDtypeStruct(frame, jnp.int32),
+                   jax.ShapeDtypeStruct(frame, jnp.float32)],
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=num_warps,
+                                                 num_stages=num_stages),
+        interpret=interpret,
+        name="raster_tiles",
+    )(y_offset.reshape(1), counts, bins, table)
 
 
-def rasterize_pallas(bin_data: jnp.ndarray, bins: jnp.ndarray,
-                     counts: jnp.ndarray, width: int, height: int,
-                     cfg, y_offset=0) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Pallas-path entry: same contract as ops.raster.rasterize."""
-    th, tw = cfg.tile_h, cfg.tile_w
+def rasterize_pallas(setup_data: jnp.ndarray, bins: jnp.ndarray,
+                     counts: jnp.ndarray, width: int, height: int, cfg,
+                     y_offset=0, *, block_pixels: int = BLOCK_PIXELS,
+                     num_warps: int = NUM_WARPS,
+                     num_stages: int = NUM_STAGES
+                     ) -> Tuple[jnp.ndarray, jnp.ndarray]:
+    """Raster binned triangles straight from the (T, 16) setup table.
+
+    Same contract as ops.raster.rasterize, with the setup table in place
+    of the pre-gathered bin rows. Returns (tri_id, depth) of the
+    (height, width) slab that starts at global row `y_offset`."""
     tiles_y, tiles_x = cfg.tiles(width, height)
-
-    id_tiles, z_tiles = _rasterize_pallas_padded(
-        bin_data, bins, counts, jnp.asarray(y_offset, jnp.int32),
-        th, tw, tiles_y, tiles_x)
-
-    tri_id = (id_tiles.reshape(tiles_y, tiles_x, th, tw)
-              .transpose(0, 2, 1, 3).reshape(tiles_y * th, tiles_x * tw))
-    depth = (z_tiles.reshape(tiles_y, tiles_x, th, tw)
-             .transpose(0, 2, 1, 3).reshape(tiles_y * th, tiles_x * tw))
-    return tri_id[:height, :width], depth[:height, :width]
-
-
-# ---------------------------------------------------------------------------
-# Table-resident variant: instead of pre-gathering capacity-sized per-tile
-# row blocks (per-tile DMA = capacity x 64B whether the tile is empty or
-# not — 100s of MB/frame at auto capacity), keep the ENTIRE (T, 16) setup
-# table in VMEM (64B per triangle; the Duck scene is 287 KB) and have each
-# tile index it directly through its bin-id list (sublane-dynamic reads).
-# Per-tile DMA shrinks to the id list (capacity x 4B). Falls back to the
-# pre-gather kernel above when the table exceeds the VMEM budget.
-# ---------------------------------------------------------------------------
-
-TABLE_VMEM_LIMIT = 4 * 1024 * 1024  # bytes of VMEM we allow for the table
-
-
-def _raster_table_kernel(offset_ref, counts_ref, table_ref, ids_ref,
-                         id_out, z_out,
-                         *, tile_h: int, tile_w: int, tiles_x: int,
-                         capacity: int):
-    t = pl.program_id(0)
-    count = counts_ref[t]
-
-    ty = t // tiles_x
-    tx = t % tiles_x
-    base_y = (ty * tile_h + offset_ref[0]).astype(jnp.float32)
-    base_x = (tx * tile_w).astype(jnp.float32)
-
-    py = (base_y + 0.5 + jax.lax.broadcasted_iota(
-        jnp.int32, (tile_h, tile_w), 0).astype(jnp.float32))
-    px = (base_x + 0.5 + jax.lax.broadcasted_iota(
-        jnp.int32, (tile_h, tile_w), 1).astype(jnp.float32))
-
-    # Unrolled like _raster_kernel: independent id/table reads pipeline
-    # instead of serializing on scalar-extract latency; overrun entries in
-    # the trailing group are masked by (i < count).
-    u = RASTER_UNROLL
-
-    def body(j, carry):
-        zbuf, idbuf = carry
-        for k in range(u):
-            i = j * u + k
-            iv = jnp.minimum(i, capacity - 1)
-            tid = ids_ref[0, iv, 0]             # sublane-dynamic scalar
-            d = table_ref[tid]                  # (16,) row straight from
-            b0 = d[0] * px + d[1] * py + d[2]   # the VMEM-resident table
-            b1 = d[3] * px + d[4] * py + d[5]
-            b2 = d[6] * px + d[7] * py + d[8]
-            z = d[9] * px + d[10] * py + d[11]
-            cover = ((b0 >= 0.0) & (b1 >= 0.0) & (b2 >= 0.0)
-                     & (z >= 0.0) & (z < zbuf) & (i < count))
-            zbuf = jnp.where(cover, z, zbuf)
-            idbuf = jnp.where(cover, tid, idbuf)
-        return zbuf, idbuf
-
-    z_init = jnp.ones((tile_h, tile_w), jnp.float32)
-    id_init = jnp.full((tile_h, tile_w), -1, jnp.int32)
-    z_final, id_final = jax.lax.fori_loop(0, (count + u - 1) // u, body,
-                                          (z_init, id_init))
-    id_out[0] = id_final
-    z_out[0] = z_final
-
-
-@functools.partial(jax.jit, static_argnums=(4, 5, 6, 7))
-def _rasterize_pallas_table(setup_data, bins, counts, y_offset, tile_h,
-                            tile_w, tiles_y, tiles_x):
-    n_tiles, capacity = bins.shape
-    t_rows = setup_data.shape[0]
-
-    kernel = functools.partial(_raster_table_kernel, tile_h=tile_h,
-                               tile_w=tile_w, tiles_x=tiles_x,
-                               capacity=capacity)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(n_tiles,),
-        in_specs=[
-            # the whole table, same block every step: stays VMEM-resident
-            pl.BlockSpec((t_rows, 16), lambda i, o, s: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, capacity, 1), lambda i, o, s: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, tile_h, tile_w), lambda i, o, s: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile_h, tile_w), lambda i, o, s: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-    )
-
-    id_tiles, z_tiles = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((n_tiles, tile_h, tile_w), jnp.int32),
-            jax.ShapeDtypeStruct((n_tiles, tile_h, tile_w), jnp.float32),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=n_tiles * capacity * tile_h * tile_w * 16,
-            bytes_accessed=setup_data.size * 4 + bins.size * 4
-            + 2 * n_tiles * tile_h * tile_w * 4,
-            transcendentals=0,
-        ),
-    )(y_offset.reshape(1), counts, setup_data,
-      jnp.maximum(bins, 0)[:, :, None])
-    return id_tiles, z_tiles
-
-
-def rasterize_pallas_table(setup_data: jnp.ndarray, bins: jnp.ndarray,
-                           counts: jnp.ndarray, width: int, height: int,
-                           cfg, y_offset=0):
-    """Table-resident raster: avoids the per-tile pre-gathered row blocks.
-
-    setup_data: (T, 16) triangle setup rows (from triangle_setup).
-    """
-    th, tw = cfg.tile_h, cfg.tile_w
-    tiles_y, tiles_x = cfg.tiles(width, height)
-    id_tiles, z_tiles = _rasterize_pallas_table(
+    tri_id, depth = _rasterize_blocks(
         setup_data, bins, counts, jnp.asarray(y_offset, jnp.int32),
-        th, tw, tiles_y, tiles_x)
-    tri_id = (id_tiles.reshape(tiles_y, tiles_x, th, tw)
-              .transpose(0, 2, 1, 3).reshape(tiles_y * th, tiles_x * tw))
-    depth = (z_tiles.reshape(tiles_y, tiles_x, th, tw)
-             .transpose(0, 2, 1, 3).reshape(tiles_y * th, tiles_x * tw))
+        tile_h=cfg.tile_h, tile_w=cfg.tile_w, tiles_y=tiles_y,
+        tiles_x=tiles_x, block_pixels=block_pixels, num_warps=num_warps,
+        num_stages=num_stages, interpret=cfg.interpret)
     return tri_id[:height, :width], depth[:height, :width]

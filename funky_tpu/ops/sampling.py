@@ -18,7 +18,7 @@ the GL/Vulkan bilinear rule: texel coords = uv*size - 0.5.
 
 Shapes: uv may be any batch shape (..., 2); textures are (H, W, C) or
 (H, W). Gathers use flattened int32 indices — one `take` per tap, which XLA
-lowers to a dynamic-gather; the Pallas fast paths keep the tables in VMEM.
+lowers to a dynamic-gather.
 """
 
 from __future__ import annotations
@@ -31,9 +31,8 @@ import jax.numpy as jnp
 def take_rows(flat: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
     """Row gather with the index array reshaped into XLA's FAST layout.
 
-    Measured on v5e (PERF.md round-3 gather law; experiments/
-    bench_band_gather.py --locality + layout probes): the serial TPU
-    gather runs ~5.3 ns/row when the index array's trailing dim is <= 32
+    Designed around a serial gather whose rate depends on the index
+    layout (an earlier accelerator's gather ran ~5.3 ns/row when the index array's trailing dim is <= 32
     and the gathered row stays around <= 128 lanes, and ~11.4 ns/row for
     every other layout — flat (B,), tap-major (16, B), wide-minor
     (B/128, 128) and dense (H, W) all hit the slow mode. Index VALUE
@@ -181,8 +180,8 @@ def sample_bilinear_edge(img: jnp.ndarray, uv: jnp.ndarray) -> jnp.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Quad-packed sampling: XLA's TPU gather costs ~10-15ns per gathered ROW
-# regardless of row width (it's a serial dynamic-slice loop), so every
+# Quad-packed sampling: designed for a gather that costs per gathered
+# ROW regardless of row width (a serial dynamic-slice loop), so every
 # multi-texel fetch should be ONE wide row. We pre-pack each texel's 2x2
 # neighborhood [d(y,x), d(y,x+1), d(y+1,x), d(y+1,x+1)] into a 4-wide row
 # (edge-clamped), turning a bilinear/compare tap from 4 gathers into 1.
@@ -366,9 +365,8 @@ def sample_nearest_border_packed(packed_maps: jnp.ndarray,
 # Windowed variants: identical math to the full-table packed samplers, but
 # the row fetch is rebased into a (Wh, Ww, 4) window dynamic-sliced from
 # one cascade's (S, S, 4) quad-packed table at an integer `origin`.
-# Rationale: XLA's serial TPU gather costs ~12 ns/row on the 64 MB packed
-# cascade tables but ~3-4 ns/row once the table is under the ~2.5 MB
-# cliff (PERF.md "gather LAWS" #1); penumbra taps cluster in a small uv
+# Rationale: designed around a serial gather that ran ~3x faster once
+# the table fit a small cache (not yet measured on the H100); penumbra taps cluster in a small uv
 # region each frame, so a per-frame window slice turns every shadow tap
 # into a cheap small-table gather. All texel/fraction arithmetic runs in
 # GLOBAL coordinates through the exact same ops as the full-table

@@ -2,10 +2,11 @@
 
 The reference is single-GPU; its only work fan-out is the (unused) Rayon
 secondary-command-buffer recorder (multithreading.rs:75-134) that splits
-draw ranges across CPU threads. The TPU-native generalization splits the
-*framebuffer rows* across chips: geometry is tiny (KBs) and replicated,
-pixel work dominates and shards perfectly, and the only cross-chip traffic
-is all-gathering the finished row slabs + shadow map slices over ICI.
+draw ranges across CPU threads. Here the *framebuffer rows* split across
+devices: geometry is tiny (KBs) and replicated, pixel work dominates and
+shards perfectly, and the only cross-device traffic is all-gathering the
+finished row slabs + shadow map slices. The mesh is a plain 1-D axis:
+the GPUs of one host are joined all to all (NVLink).
 """
 
 from __future__ import annotations

@@ -1,19 +1,19 @@
-"""Multi-chip frame: shard_map over framebuffer rows.
+"""Multi-device frame: shard_map over framebuffer rows.
 
-Parallel decomposition (the TPU-native generalization of the reference's
+Parallel decomposition (the generalization of the reference's
 tile fan-out, SURVEY.md section 2 #14):
 
 - scene buffers, per-frame params and temporal state are REPLICATED
   (geometry is KBs; pixel buffers are what matters);
 - each device rasterizes + shades its row slab of the framebuffer
   (H / n rows) AND its row slab of every shadow cascade (S / n rows);
-- shadow-map slabs all-gather over ICI before filtering (every pixel can
+- shadow-map slabs all-gather before filtering (every pixel can
   sample any cascade texel); finished rgba / history / depth slabs
   all-gather at the end so the returned state is replicated for the next
   frame.
 
 All collectives are jax.lax.all_gather along the 1D 'rows' mesh axis —
-pure ICI traffic, no host involvement. The reference's equivalents were
+device-to-device traffic (NCCL on GPUs), no host involvement. The reference's equivalents were
 Vulkan pipeline barriers + a single GPU's hardware scheduler.
 """
 
@@ -83,7 +83,7 @@ def sharded_gltf_frame(mesh: Mesh, cfg: GltfConfig):
                 # Synthesized maps are REPLICATED math (analytic ground +
                 # a tiny occluder-window raster) — ZERO shadow-map
                 # collectives, vs the raw-slab all-gather's 67 MB/frame
-                # at 2048^2 (the biggest term of the r3 ICI bill). The
+                # at 2048^2 (the biggest collective term). The
                 # window-overflow fallback is a replicated full raster,
                 # so neither cond branch holds a collective (`ok` is
                 # replicated: computed from replicated inputs).

@@ -6,7 +6,7 @@ steps + 4 bisection steps against the scene depth buffer, sampled with BOTH
 bilinear and nearest filters (the dual-sampler trick that rejects
 stair-step and shrink-wrap artifacts, gltf.frag:143-169).
 
-The loop is batch-parallel over pixels — exactly the shape TPUs like; the
+The loop is batch-parallel over pixels — a dense array program; the
 sequential `break` in the shader becomes a carried `intersected` mask.
 
 Depth source: the reference binds the depth buffer of swapchain image 0 and

@@ -12,7 +12,7 @@ reconstructs attributes with perspective-correct barycentric weights:
 
 This matches hardware `smooth` interpolation exactly (within fp error).
 One gather of 36+12 contiguous floats per pixel instead of ~10 scattered
-vertex gathers — the TPU-friendly layout.
+vertex gathers.
 """
 
 from __future__ import annotations
@@ -54,8 +54,8 @@ def interpolate_at(tri_id: jnp.ndarray, depth: jnp.ndarray,
     valid = tri_id >= 0
     safe_id = jnp.maximum(tri_id, 0)
 
-    # ONE fused row gather per pixel: XLA TPU gather pays a serial-loop
-    # cost per gathered ROW (width ~free), so setup planes (9), shade
+    # ONE fused row gather per pixel (designed for a gather that paid per
+    # ROW, width ~free; not yet measured on the H100): setup planes (9), shade
     # blocks (36) and flags (1) concat into a 46-wide row table first.
     t = setup_data.shape[0]
     fused = jnp.concatenate([

@@ -2,7 +2,7 @@
 
 The reference runs gltf.vert per vertex per draw (model matrix via push
 constant, gltf.vert:33-47). Here the whole scene transforms in one shot:
-positions (V,3) hit the MXU as a single batched matmul against the per-object
+positions (V,3) go through a single batched matmul against the per-object
 model matrices (selected by object slot), then the view-proj matrix.
 
 Outputs:

@@ -1,6 +1,6 @@
 """Fragment shading math — jnp ports of cube.frag and gltf.frag's lighting.
 
-Pure element-wise VPU work over (H, W, ...) arrays; XLA fuses the whole
+Pure element-wise work over (H, W, ...) arrays; XLA fuses the whole
 thing into the surrounding passes. Shadow/TAA/contact terms are computed by
 their own passes and fed in as the `shadow` scalar field.
 

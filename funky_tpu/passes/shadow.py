@@ -4,11 +4,11 @@ The reference renders 4 depth-only passes into a 4-layer 2048^2 D32 array
 (gltf_renderer.rs:728-804, render loop 2075-2152; shadow.vert picks
 lightViewProj[cascadeIndex]). Here each cascade is one depth-only run of
 the shared tile rasterizer; world-space vertices are transformed by each
-cascade's light matrix (the vertex work is a 4x batched MXU matmul over the
+cascade's light matrix (the vertex work is a 4x batched matmul over the
 whole scene, replacing 4 re-draws of every mesh).
 
 Clear depth is 1.0; depth compare semantics per ops/raster.py. All four
-cascades are independent subgraphs inside the frame jit, so XLA/TPU can
+cascades are independent subgraphs inside the frame jit, so XLA can
 overlap them freely — the reference's image barriers (2003-2032, 2154-2177)
 become plain data dependencies.
 """
@@ -56,7 +56,7 @@ def render_shadow_maps(world: jnp.ndarray, tri_indices: jnp.ndarray,
 # rasterizing 4x2048^2 texels, yet almost all of them are the flat ground
 # quad — whose depth is EXACTLY an affine plane in light uv (ortho light,
 # gltf_renderer.rs:1938-1944). So: evaluate the ground analytically over
-# the full map (pure VPU math, zero raster), and rasterize only the
+# the full map (pure elementwise math, zero raster), and rasterize only the
 # OCCLUDERS into a small footprint window (see
 # shadow_lightspace.plan_windows — the occluder uv bbox IS the shadow
 # footprint under an ortho light).

@@ -1,8 +1,9 @@
 """Shadow-map LIT/UMBRA/PENUMBRA classification for sparse filtering.
 
 The reference GPU retires cheap shadow pixels through fragment-shader
-early-outs (gltf.frag:402-423) and brute-forces the rest; on TPU every tap
-is a serial-loop gather row and masking saves nothing, so we classify
+early-outs (gltf.frag:402-423) and brute-forces the rest; designed for a
+machine where every tap is a serial-loop gather row and masking saves
+nothing, we classify
 pixels FIRST with dense light-space prefilters and run the exact 16+16-tap
 evaluation only on the compacted penumbra set (ops/compact.py).
 
@@ -74,8 +75,8 @@ BORDER_DEPTH = 1.0   # CLAMP_TO_BORDER white (gltf_renderer.rs:806-833)
 # 4 * max_softness (default 16 -> 18 <= 34). The blocker-search window
 # reuses the smallest rung that covers it (a larger window is
 # conservative), keeping the cell row at 8 floats — with coarse=16 the
-# whole table is 4*(2048/16)^2 x 32 B ~= 2 MB, under the measured TPU
-# gather cliff (tables <= ~2.5 MB gather at ~4 ns/row vs ~12 above).
+# whole table is 4*(2048/16)^2 x 32 B ~= 2 MB (sized for a gather that
+# ran faster on small tables; not yet measured on the H100).
 DROP_LADDER = (3, 6, 12, 20, 34)
 FOOT_MARGIN = 2.0    # tap footprint: nearest/bilinear corners + px offset
 
@@ -83,8 +84,8 @@ FOOT_MARGIN = 2.0    # tap footprint: nearest/bilinear corners + px offset
 class ShadowClassMaps(NamedTuple):
     """Per-cascade relief statistics (coarse-cell rows only — the anchor
     depth d(s_px) is BOUNDED via per-cell residuals against an analytic
-    ground plane instead of gathered per texel: the raw (L*S*S)-row table
-    cost ~13 ns/px/cascade on TPU, the cell table ~3 ns)."""
+    ground plane instead of gathered per texel from the raw (L*S*S)-row
+    table)."""
     cell_rows: jnp.ndarray  # (L * Sc * Sc, K+2) [drop_ladder..., drop_Lw,
     #                          rise_U, min_resid, max_resid] per cell
     planes: jnp.ndarray     # (L, 3) uv-space ndc-depth plane per cascade
@@ -101,9 +102,7 @@ def _dilate_exact(x: jnp.ndarray, reach: int, reduce_fn, pad_value: float,
     reachable by the step sequence 1, 1, 2, 4, ... with truncation).
 
     Shifts are STATIC SLICES + pad — never jnp.take/roll with an iota,
-    which XLA TPU lowers to its serial gather loop (measured: the
-    take-based version cost ~170 ms/frame at 4x2048^2; slices are pure
-    HBM streams)."""
+    which lowers to a gather; slices are pure HBM streams."""
     want = sorted(set(collect_at) | {reach})
     out = {}
     done = 0
@@ -148,8 +147,7 @@ def _cell_max(x: jnp.ndarray, coarse: int) -> jnp.ndarray:
 
 def _pool2(x: jnp.ndarray):
     """2x2 max/min pools of (L, S, S) via strided slices (layout-free;
-    the reshape-reduce formulation relayouts and is ~10x slower on TPU —
-    experiments/bench_cellmax.py)."""
+    the reshape-reduce formulation needs a relayout)."""
     hi = jnp.maximum(x[:, 0::2, :], x[:, 1::2, :])
     hi = jnp.maximum(hi[:, :, 0::2], hi[:, :, 1::2])
     lo = jnp.minimum(x[:, 0::2, :], x[:, 1::2, :])

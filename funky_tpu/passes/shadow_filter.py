@@ -63,9 +63,8 @@ def vogel_disk(i: int, count: int, phi: jnp.ndarray):
 def vogel_disk_all(count: int, phi: jnp.ndarray):
     """All `count` Vogel taps at once: (dx, dy) shaped (count, *phi.shape).
 
-    TPU: independent taps MUST be issued as ONE batched gather — measured
-    ~26 ns/row for 32 sequential ~100k-row gather ops vs ~6 ns/row for
-    one big op (per-op overhead dominates small gathers)."""
+    Independent taps are issued as ONE batched gather (designed around
+    per-op gather overhead; not yet measured on the H100)."""
     i = jnp.arange(count, dtype=jnp.float32).reshape(
         (count,) + (1,) * phi.ndim)
     r = jnp.sqrt(i + 0.5) / jnp.sqrt(jnp.float32(count))
@@ -128,7 +127,7 @@ def _project_all(uni: FrameUniforms, world: jnp.ndarray,
 
 def _select_cascade(proj_all: jnp.ndarray, cascade: jnp.ndarray):
     """One-hot select one cascade's projection: (uv, receiver, in_bounds).
-    Pure VPU work — a per-pixel matrix gather would be a serial loop."""
+    Pure elementwise work — no per-pixel matrix gather."""
     n_casc = proj_all.shape[0]
     sel = (cascade[None] == jnp.arange(n_casc, dtype=jnp.int32).reshape(
         (n_casc,) + (1,) * cascade.ndim))
@@ -147,10 +146,9 @@ def _light_project(uni: FrameUniforms, cascade: jnp.ndarray,
     """Normal-offset bias + light-space projection for one cascade
     (gltf.frag:391-410 == 453-469).
 
-    TPU note: gathering a per-pixel 4x4 matrix (lightViewProj[cascade]) is
-    a row gather XLA lowers to a serial loop (~30ms/frame); projecting
-    densely through ALL 4 cascades and one-hot selecting is pure VPU work
-    and ~free."""
+    Projecting densely through ALL 4 cascades and one-hot selecting
+    replaces a per-pixel 4x4 matrix gather (lightViewProj[cascade]) with
+    elementwise work."""
     proj_all, bias = _project_all(uni, world, normal, n_dot_l)
     uv, receiver, in_bounds = _select_cascade(proj_all, cascade)
     return uv, receiver, bias, in_bounds
@@ -347,8 +345,8 @@ def cascaded_shadow(uni: FrameUniforms, shadow_maps: jnp.ndarray,
 # ---------------------------------------------------------------------------
 # Sparse evaluation: classify -> compact -> exact taps on penumbra pixels.
 #
-# Gathers dominate the shadow stack on TPU (PERF.md), and masking does not
-# save them. The conservative LIT/UMBRA classification
+# Designed for a machine where gathers dominated the shadow stack and
+# masking did not save them (not yet re-measured on the H100). The conservative LIT/UMBRA classification
 # (passes/shadow_classify.py) yields the EXACT reference result in closed
 # form for most pixels; only penumbra pixels (and umbra pixels inside a
 # cascade-blend band, whose PCSS kernel radius feeds the TAA variance

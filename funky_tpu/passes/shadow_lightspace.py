@@ -1,14 +1,14 @@
 """Dense LIGHT-SPACE shadow evaluation for planar (ground) receivers.
 
-The TPU frame's dominant cost is the per-pixel PCSS tap core: every tap is
-a serial-loop gather row (PERF.md), and the flagship view has ~82k penumbra
+Designed around a per-pixel PCSS tap core where every tap is a
+serial-loop gather row; the flagship view had ~82k penumbra
 (pixel, cascade) pairs x ~34 rows each. But most penumbra pixels lie on the
 GROUND PLANE, whose receiver depth is AFFINE in shadow uv (the same plane
 shadow_classify.light_ground_planes fits for the closed forms). For such
 receivers the whole PCSS evaluation — blocker search + penumbra estimate +
 penumbra-radius PCF (gltf.frag:366-449) — depends only on the light-space
 texel, not on the screen pixel, so it can run DENSELY over a light-space
-window as shifted-image VPU ops with ZERO gathers:
+window as shifted-image elementwise ops with ZERO gathers:
 
   - every tap offset is spatially constant over the domain, so a tap is a
     (traced) integer window shift + constant bilinear weights;

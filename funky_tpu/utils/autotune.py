@@ -30,9 +30,9 @@ def _round_up(value: int, quantum: int) -> int:
 
 def tune_raster_capacities(scene, params, cfg):
     """Per-tile bin occupancy for the main + shadow rasters -> tightened
-    RasterConfig capacities (the per-tile block DMA is capacity-sized, so
-    a loose bound is pure overhead; 1.5x headroom + verification against
-    the measured max keeps it safe)."""
+    RasterConfig capacities (the jnp raster scans the whole capacity in
+    every tile, so a loose bound is pure overhead; 1.5x headroom +
+    verification against the measured max keeps it safe)."""
     from ..frame import compute_frame_uniforms, init_frame_state
     from ..ops.binning import bin_stats
     from ..passes.geometry import transform_vertices
@@ -346,30 +346,19 @@ def capacity_slack(cfg, occ) -> list:
 
 def autotune_config(scene, params, cfg, frames: int = 2, verbose=False):
     """Full tuning pass: raster bins, then sparse/block capacities
-    (measured with the bin-tuned config). Any failure leaves the
-    corresponding capacities at their always-correct defaults."""
-    try:
-        cfg = tune_raster_capacities(scene, params, cfg)
-        if verbose:
-            print(f"# autotune: raster capacity {cfg.raster.capacity}, "
-                  f"shadow {cfg.shadow_raster.capacity}", file=sys.stderr)
-    except Exception as e:  # diagnostics must never break startup
-        if verbose:
-            print(f"# autotune raster failed ({e}); using defaults",
-                  file=sys.stderr)
-    try:
-        cfg, occ = tune_sparse_capacities(scene, params, cfg,
-                                          frames=frames)
-        if verbose:
-            print(f"# autotune: occupancy {occ} -> pen "
-                  f"{cfg.shadow_pen_capacity}, contact "
-                  f"{cfg.contact_capacity}/{cfg.contact_march_capacity}, "
-                  f"slab rows {cfg.valid_slab_rows}, "
-                  f"valid blocks {cfg.valid_block_capacity}, "
-                  f"tap windows {cfg.shadow_tap_windows}",
-                  file=sys.stderr)
-    except Exception as e:
-        if verbose:
-            print(f"# autotune sparse failed ({e}); using defaults",
-                  file=sys.stderr)
+    (measured with the bin-tuned config). A failure raises: a run must
+    never pass off the untuned defaults as a tuned config."""
+    cfg = tune_raster_capacities(scene, params, cfg)
+    if verbose:
+        print(f"# autotune: raster capacity {cfg.raster.capacity}, "
+              f"shadow {cfg.shadow_raster.capacity}", file=sys.stderr)
+    cfg, occ = tune_sparse_capacities(scene, params, cfg, frames=frames)
+    if verbose:
+        print(f"# autotune: occupancy {occ} -> pen "
+              f"{cfg.shadow_pen_capacity}, contact "
+              f"{cfg.contact_capacity}/{cfg.contact_march_capacity}, "
+              f"slab rows {cfg.valid_slab_rows}, "
+              f"valid blocks {cfg.valid_block_capacity}, "
+              f"tap windows {cfg.shadow_tap_windows}",
+              file=sys.stderr)
     return cfg

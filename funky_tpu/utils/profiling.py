@@ -8,7 +8,7 @@ budget table. Here:
   update_performance_stats, main.rs:203-215).
 - PassTimer: wall timings via block_until_ready deltas (per-pass budget
   table equivalent).
-- trace(): context manager around jax.profiler for deep TPU traces.
+- trace(): context manager around jax.profiler for device traces.
 """
 
 from __future__ import annotations
@@ -77,8 +77,13 @@ class PassTimer:
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/funky_tpu_trace"):
-    """jax.profiler trace around a block (view with tensorboard/xprof)."""
+def trace(log_dir: str | None = None):
+    """jax.profiler trace around a block (view with tensorboard/xprof);
+    log_dir defaults to funky_tpu_trace/ under the temp directory."""
+    if log_dir is None:
+        import tempfile
+
+        log_dir = f"{tempfile.gettempdir()}/funky_tpu_trace"
     jax.profiler.start_trace(log_dir)
     try:
         yield log_dir

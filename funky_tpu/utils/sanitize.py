@@ -1,4 +1,4 @@
-"""Numeric sanitizers — the TPU-native analogue of Vulkan validation
+"""Numeric sanitizers — the array-program analogue of Vulkan validation
 layers (README.md:292-295 names them as the reference's debugging tool;
 SURVEY.md §5 plans checkify/NaN guards for this framework).
 

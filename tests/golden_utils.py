@@ -18,7 +18,17 @@ sys.path.insert(0, str(REPO))
 import numpy as np  # noqa: E402
 
 GOLDEN_DIR = pathlib.Path(__file__).resolve().parent / "goldens"
+TOL = 3.0 / 255.0   # u8 quantization + fp-reordering headroom
+MAX_BAD_FRAC = 2e-3  # allow a few edge pixels to flicker
 DUCK = pathlib.Path("/root/reference/models/scene.gltf")
+
+
+def golden_mismatch(got, want):
+    """(fraction of pixels whose worst channel is off by more than TOL,
+    largest difference) between two sRGB images in [0, 1]."""
+    diff = np.abs(np.asarray(got, np.float32)
+                  - np.asarray(want, np.float32)).max(axis=-1)
+    return float((diff > TOL).mean()), float(diff.max())
 
 
 def render_cube():
